@@ -16,25 +16,15 @@ import numpy as np
 
 
 def _force_platform(args):
-    """Select device platform before first JAX touch, and point the
-    persistent XLA compile cache at a per-user dir so every CLI process
-    reuses compiled programs (~100s for the 32Mbp pipeline otherwise;
-    GT_TPU_JAX_CACHE overrides, empty disables)."""
+    """Select device platform before first JAX touch, and enable the
+    persistent compile cache so every CLI process reuses the programs
+    earlier ones compiled (see utils.compile_cache for its placement)."""
     import jax
+
+    from .utils.compile_cache import enable_compile_cache
     if getattr(args, "cpu", False):
         jax.config.update("jax_platforms", "cpu")
-    cache = os.environ.get("GT_TPU_JAX_CACHE")
-    if cache is None:
-        cache = os.path.join(os.path.expanduser("~"), ".cache",
-                             "genometools_tpu", "jax")
-    if cache:
-        try:
-            os.makedirs(cache, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", cache)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                              1.0)
-        except Exception:
-            pass
+    enable_compile_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3691,7 +3681,7 @@ def _proc_env_options():
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="gt-tpu",
-        description="TPU-native sequence indexing and matching toolkit")
+        description="JAX sequence indexing and matching toolkit")
     sub = parser.add_subparsers(dest="tool", required=True)
     for add in _REGISTER:
         add(sub)

@@ -565,3 +565,26 @@ def read_des(indexname: str, nseq: int) -> list[str]:
     if descs and descs[-1] == "":
         descs.pop()
     return descs if len(descs) == nseq else [""] * nseq
+
+
+def write_fasta_from_index(indexname: str, fasta_path: str,
+                           width: int = 70) -> Encseq:
+    """Decode a reference-format .esq/.ssp/.des index back into a FASTA
+    file: one record per sequence, its .des header, regular symbols in
+    upper case and every wildcard as 'N'.  Re-encoding the file gives
+    the same codes, separators and per-sequence md5s as the index (the
+    original wildcard letters are not stored, so the header fields that
+    describe the source file itself are not recovered).  Returns the
+    decoded Encseq."""
+    enc, _ = read_esq(indexname)
+    lut = np.full(256, ord("N"), np.uint8)
+    lut[:4] = np.frombuffer(b"ACGT", np.uint8)
+    starts = np.concatenate([[0], enc.ssp + 1]).astype(np.int64)
+    ends = np.concatenate([enc.ssp, [enc.total_length]]).astype(np.int64)
+    with open(fasta_path, "wb") as f:
+        for desc, lo, hi in zip(enc.descs, starts.tolist(), ends.tolist()):
+            f.write(b">" + desc.encode("latin-1") + b"\n")
+            body = lut[enc.codes[lo:hi]].tobytes()
+            for p in range(0, len(body), width):
+                f.write(body[p:p + width] + b"\n")
+    return enc

@@ -229,10 +229,14 @@ def build_esa(encseq: Encseq, readmode: int = FWD, with_lcp: bool = True,
             from ..parallel.dist_doubling_sharded import \
                 sharded_suffix_array
             from ..parallel.dist_esa import make_mesh
-            sa = sharded_suffix_array(keys, make_mesh(ndev))
+            sa = np.asarray(sharded_suffix_array(keys, make_mesh(ndev)))
             if with_lcp:
+                from ..core.native import kasai_lcp_native
                 from .suffix import kasai_lcp
-                lcp = kasai_lcp(keys, np.asarray(sa))
+                if keys.dtype == np.int32:
+                    lcp = kasai_lcp_native(keys, sa)
+                if lcp is None:
+                    lcp = kasai_lcp(keys, sa)
         except NotImplementedError:
             sa = None       # int64-range input: single-chip parts path
     if sa is None:
@@ -422,7 +426,7 @@ def merge_esas(encseqs: list[Encseq], with_lcp: bool = True
     """Merge several indexed sequence sets into one ESA
     (ref: gt dev mergeesa, src/match/esa-merge.c / emimergeesa.h).
 
-    TPU-first take: the reference streams and merges presorted suffix
+    Accelerator-first take: the reference streams and merges presorted suffix
     readers because a CPU rebuild is expensive; here the combined index
     is rebuilt with the device sort (millions of suffixes/s), which is
     both simpler and faster than a sequential k-way merge. The result is

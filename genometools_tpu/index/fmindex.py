@@ -6,7 +6,7 @@ Capability equivalent of the reference packedindex / BWTSeq stack
 
 Redesign: instead of block-composition encoding, the occ function is a
 sampled checkpoint matrix plus a vectorized partial count — the natural
-array layout for numpy/TPU (rank = checkpoint[c, pos/k] +
+array layout for numpy/accelerators (rank = checkpoint[c, pos/k] +
 count(bwt[k*(pos/k):pos] == c)), and locate uses a sampled suffix array
 with LF-walks. Functionally covers: exact backward search (count),
 locate, and sequence context regeneration (extract).
@@ -199,7 +199,7 @@ class FMDeviceRank:
     the BWT travels as one-hot bitplanes (uint32 words) plus the
     checkpoint matrix; occ(c, pos) for a whole batch of (c, pos) lanes
     is a gather of checkpoints + a masked popcount over one block —
-    vectorized across lanes (the TPU analog of the reference's
+    vectorized across lanes (the device analog of the reference's
     block-compressed rank, eis-blockcomp.c)."""
 
     def __init__(self, fm: FMIndex):

@@ -1,4 +1,4 @@
-"""TPU-native suffix array + LCP construction.
+"""Device suffix array + LCP construction.
 
 This replaces the reference's scalar bucket pipeline (Sfxiterator +
 Bentley-Sedgewick multikey quicksort, ref: src/match/sfx-suffixer.c,
@@ -8,9 +8,10 @@ src/match/sfx-bentsedg.c) with a data-parallel **prefix-doubling** design:
   (see Encseq.suffix_keys for the key mapping that encodes the reference's
   special-character ordering exactly).
 * Each doubling round sorts (rank[i], rank[i+h]) pairs with a two-key
-  `lax.sort` — XLA maps this onto the TPU sort network; there is no
-  per-bucket recursion, no data-dependent control flow, and every round is
-  a fixed-shape O(n) kernel. ceil(log2 n) rounds worst case, with early
+  `lax.sort` (which sort XLA's GPU backend emits for several operands
+  is not yet measured); there is no per-bucket recursion, no
+  data-dependent control flow, and every round is a fixed-shape O(n)
+  kernel. ceil(log2 n) rounds worst case, with early
   exit via `lax.while_loop` once ranks are dense.
 * The per-round rank tables double as a longest-common-prefix oracle: LCP
   of adjacent suffixes is computed by descending the rank levels
@@ -379,7 +380,7 @@ def _sa_pipeline(keys_j: jnp.ndarray, n1: int, sigma: int,
         # keep their unique (key1,key2) and are no-op updates), rounds
         # run up to the worst-case count, and the per-round still-tied
         # counts are fetched once at the end to trim the LCP level
-        # stack. This keeps remote-device latency off the critical path.
+        # stack. This keeps host round trips off the critical path.
         kcap = _next_pow2(tc)
         s_j = _compact_mask(tiedmask, kcap)
         v_j = s_j < npad

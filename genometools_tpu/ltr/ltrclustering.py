@@ -13,7 +13,7 @@ Elements are then assigned a family id (`ltrfam`) from their lLTR
 cluster (the classify stream's grouping key, ref:
 src/ltr/ltr_classify_stream.c).
 
-TPU-first matcher: instead of the reference's external LAST pipeline,
+Accelerator-first matcher: instead of the reference's external LAST pipeline,
 group members are concatenated into one Encseq and matched with the
 batched seed_extend engine (the same device seeding + extension stack
 as `gt seed_extend`).

@@ -7,7 +7,7 @@ subject on the seed's care positions (seed "11011011000011011",
 ref: cgr_spacedseed.c:198); each hit prints ``dblen<TAB>dbstartpos``
 (ref: cgr_showmatch cgr_spacedseed.c:135-140).
 
-TPU-first shape: instead of the reference's limdfs wildcard walk over
+Accelerator-first shape: instead of the reference's limdfs wildcard walk over
 the packed index (idx-limdfs.c), the subject's masked window codes are
 packed once into a sorted table (2 bits per care position) and every
 query window becomes one binary search — the same batched

@@ -11,9 +11,9 @@ identical in shape to what the device batch sees during a real run.
 Two forms:
   * collect_extension_tasks — materialized (u, v) code arrays;
   * collect_extension_pool — one concatenated sequence pool plus
-    int descriptors (u_off, u_len, v_off, v_len, rev) for the
-    pool-resident device path (ops.greedy_batch.greedy_extend_batch_pool),
-    where rev marks left flanks (both sides read reversed).
+    int descriptors (u_off, u_len, v_off, v_len, rev), a compact form
+    to cache on disk, where rev marks left flanks (both sides read
+    reversed).
 """
 
 from __future__ import annotations
@@ -125,10 +125,9 @@ def collect_extension_tasks(aenc: Encseq,
 def collect_extension_pool(aenc: Encseq,
                            params: SeedExtendParams | None = None,
                            max_tasks: int | None = None):
-    """Return (pool, u_off, u_len, v_off, v_len, rev, k) for the
-    pool-resident device batch: pool is the concatenation of every
-    sequence variant the tasks reference; rev lanes read both flanks
-    reversed (left flanks)."""
+    """Return (pool, u_off, u_len, v_off, v_len, rev, k): pool is the
+    concatenation of every sequence variant the tasks reference; rev
+    lanes read both flanks reversed (left flanks)."""
     refs, cache, k = _candidate_refs(aenc, params, max_tasks)
     bases = {}
     parts = []

@@ -7,7 +7,7 @@ are accumulated in sorted buffers, merged into one database keyed by
 code with per-occurrence (seqnum, startpos) lists, optionally with a
 per-interval id compression and a cutoff on occurrence counts.
 
-TPU-first redesign: the reference merges per-buffer sorted linked
+Accelerator-first redesign: the reference merges per-buffer sorted linked
 blocks; here one vectorized sort/segment pass builds the same store —
 the merge() of two databases is a numpy merge by code, and the
 `interval id` compaction becomes the (codes, offsets) CSR layout.

@@ -508,8 +508,7 @@ def _seq_codes(enc: Encseq, s: int, revcomp: bool) -> np.ndarray:
     return seq
 
 
-def _batch_greedy_extensions(cands, k, greedy_ctx, belowscore=None,
-                             pool=None):
+def _batch_greedy_extensions(cands, k, greedy_ctx, belowscore=None):
     """Speculative device-batched extension of every candidate seed
     (the reference extends seeds one by one and skips seeds inside
     previous match rectangles; the skip decision never needs the
@@ -517,10 +516,7 @@ def _batch_greedy_extensions(cands, k, greedy_ctx, belowscore=None,
     two device batches — left flanks, then right flanks bounded by the
     left results — preserves the exact sequential semantics).
 
-    cands: list of (useq, vseq, same_seq, dbstart_rel, querystart_rel,
-    u_poolbase, v_poolbase); with `pool` set, flank windows ship as
-    (offset, len, rev) descriptors against the resident pool plane —
-    no host window materialization on the device path.
+    cands: list of (useq, vseq, same_seq, dbstart_rel, querystart_rel).
     greedy_ctx set -> greedy engine; greedy_ctx None -> xdrop with the
     given belowscore (unit scores), via ops.xdrop_batch's exact batch.
     Returns one entry per candidate: the `_extend_one_seed` tuple, or
@@ -535,61 +531,37 @@ def _batch_greedy_extensions(cands, k, greedy_ctx, belowscore=None,
     2*cap - mad - slack on the device (live fronts stay within
     maxalignedlendifference of the best, so a shorter best implies no
     cell reached the edge)."""
-    from ..ops.greedy_batch import (greedy_extend_batch,
-                                    greedy_extend_batch_pool)
-    from ..ops.xdrop_batch import (xdrop_extend_batch_exact,
-                                   xdrop_extend_batch_pool)
+    from ..ops.greedy_batch import greedy_extend_batch
+    from ..ops.xdrop_batch import xdrop_extend_batch_exact
 
     out = [None] * len(cands)
     if greedy_ctx is not None:
         pol, pmh, mad, history = greedy_ctx
     CAP0 = 2048
 
-    def run_side(specs, rev_side):
-        """specs: (cand_idx, slicer, maxflank, off_slicer);
-        slicer(cap) -> (u, v) clipped windows (cap=None -> full);
-        off_slicer(cap) -> (u_off, u_len, v_off, v_len) pool rows.
+    def run_side(specs):
+        """specs: (cand_idx, slicer, maxflank);
+        slicer(cap) -> (u, v) clipped windows (cap=None -> full).
         Fills (u_ext, v_ext, score_or_dist, mm) per entry."""
         if not specs:
             return {}
         if greedy_ctx is None:
-            if pool is not None:
-                offs = np.asarray([sp[3](None) for sp in specs],
-                                  np.int64)
-                iv, jv, sv = xdrop_extend_batch_pool(
-                    pool, offs[:, 0], offs[:, 1], offs[:, 2],
-                    offs[:, 3], np.full(len(specs), rev_side, bool),
-                    belowscore)
-            else:
-                built = [sp[1](None) for sp in specs]
-                iv, jv, sv = xdrop_extend_batch_exact(
-                    [b[0] for b in built], [b[1] for b in built],
-                    belowscore)
+            built = [sp[1](None) for sp in specs]
+            iv, jv, sv = xdrop_extend_batch_exact(
+                [b[0] for b in built], [b[1] for b in built], belowscore)
             return {sp[0]: (int(iv[t]), int(jv[t]), int(sv[t]), 0)
                     for t, sp in enumerate(specs)}
-        import jax
-        use_cpp = jax.default_backend() == "cpu"
+        # the C++ batch is the engine unless the device engine is asked
+        # for (or the native library is missing: greedy_batch_native
+        # then returns None and the XLA batch runs)
+        use_cpp = not os.environ.get("GT_TPU_DEVICE_EXTEND")
         side = {}
         pending = list(specs)
         cap = CAP0
         while pending:
-            use_pool = pool is not None and not use_cpp
-            if use_pool:
-                offs = np.asarray([sp[3](cap) for sp in pending],
-                                  np.int64)
-
-                def mat(t):
-                    uo, ulc, vo, vlc = offs[t]
-                    u = pool[uo:uo + ulc]
-                    v = pool[vo:vo + vlc]
-                    return (u[::-1], v[::-1]) if rev_side else (u, v)
-            else:
-                built = [sp[1](cap) for sp in pending]
-                us = [b[0] for b in built]
-                vs = [b[1] for b in built]
-
-                def mat(t):
-                    return us[t], vs[t]
+            built = [sp[1](cap) for sp in pending]
+            us = [b[0] for b in built]
+            vs = [b[1] for b in built]
             resn = None
             if use_cpp:
                 from ..core.native import greedy_batch_native
@@ -607,28 +579,18 @@ def _batch_greedy_extensions(cands, k, greedy_ctx, belowscore=None,
                         side[ci] = (int(r[1]), int(r[0] - r[1]),
                                     int(r[2]), int(r[3]))
             else:
-                if use_pool:
-                    res = greedy_extend_batch_pool(
-                        pool, offs[:, 0], offs[:, 1], offs[:, 2],
-                        offs[:, 3],
-                        np.full(len(pending), rev_side, bool),
-                        seedlengths=k, perc_mat_history=pmh,
-                        maxalignedlendifference=mad, pol_info=pol,
-                        history=history, skip_chunked=True)
-                else:
-                    res = greedy_extend_batch(
-                        us, vs, seedlengths=k, perc_mat_history=pmh,
-                        maxalignedlendifference=mad, pol_info=pol,
-                        history=history, skip_chunked=True)
-                # stragglers (slot-drift/GENS lanes) go to the C++
-                # batch in one call — a chunked device subproblem costs
-                # seconds per wave, the host loop microseconds
+                res = greedy_extend_batch(
+                    us, vs, seedlengths=k, perc_mat_history=pmh,
+                    maxalignedlendifference=mad, pol_info=pol,
+                    history=history)
+                # lanes the device hands back (slot overflow or chunk
+                # budget) go to the C++ batch in one call
                 fb = np.flatnonzero(res["fallback"])
                 fbres = None
                 if fb.size:
                     from ..core.native import greedy_batch_native
-                    fbu = [mat(int(t))[0] for t in fb]
-                    fbv = [mat(int(t))[1] for t in fb]
+                    fbu = [us[int(t)] for t in fb]
+                    fbv = [vs[int(t)] for t in fb]
                     fbres = greedy_batch_native(
                         fbu, fbv,
                         max_history=history, perc_mat_history=pmh,
@@ -654,9 +616,8 @@ def _batch_greedy_extensions(cands, k, greedy_ctx, belowscore=None,
                         retry.append(sp)
                         continue
                     if res["fallback"][t]:
-                        ut, vt = mat(t)
                         _, best = greedy_extend(
-                            ut, vt, max_history=history,
+                            us[t], vs[t], max_history=history,
                             perc_mat_history=pmh,
                             maxalignedlendifference=mad, seedlength=k,
                             pol_info=pol)
@@ -679,13 +640,6 @@ def _batch_greedy_extensions(cands, k, greedy_ctx, belowscore=None,
             return useq[ulo:db][::-1], vseq[vlo:qs][::-1]
         return make
 
-    def left_offsets(ga, gb, db, voff, qs):
-        def make(cap):
-            ulo = 0 if cap is None else max(0, db - cap)
-            vlo = voff if cap is None else max(voff, qs - cap)
-            return ga + ulo, db - ulo, gb + vlo, qs - vlo
-        return make
-
     def right_slicer(useq, vseq, dbk, urb, qsk):
         def make(cap):
             uhi = urb if cap is None else min(urb, dbk + cap)
@@ -694,15 +648,8 @@ def _batch_greedy_extensions(cands, k, greedy_ctx, belowscore=None,
             return useq[dbk:uhi], vseq[qsk:vhi]
         return make
 
-    def right_offsets(ga, gb, dbk, urb, qsk, vlen_t):
-        def make(cap):
-            uhi = urb if cap is None else min(urb, dbk + cap)
-            vhi = vlen_t if cap is None else min(vlen_t, qsk + cap)
-            return ga + dbk, uhi - dbk, gb + qsk, vhi - qsk
-        return make
-
     left_tasks = []
-    for ci, (useq, vseq, same_seq, db, qs, ga, gb) in enumerate(cands):
+    for ci, (useq, vseq, same_seq, db, qs) in enumerate(cands):
         if same_seq and db + k - 1 >= qs:
             continue                      # overlapping instances: None
         out[ci] = [0, 0, 0, 0, 0, 0, 0, 0]
@@ -711,14 +658,13 @@ def _batch_greedy_extensions(cands, k, greedy_ctx, belowscore=None,
             if qs - voff > 0:
                 left_tasks.append((ci, left_slicer(useq, vseq, db,
                                                    voff, qs),
-                                   max(db, qs - voff),
-                                   left_offsets(ga, gb, db, voff, qs)))
-    for ci, (row, vext, dist, mmv) in run_side(left_tasks, True).items():
+                                   max(db, qs - voff)))
+    for ci, (row, vext, dist, mmv) in run_side(left_tasks).items():
         out[ci][0], out[ci][1], out[ci][2], out[ci][6] = \
             row, vext, dist, mmv
 
     right_tasks = []
-    for ci, (useq, vseq, same_seq, db, qs, ga, gb) in enumerate(cands):
+    for ci, (useq, vseq, same_seq, db, qs) in enumerate(cands):
         if out[ci] is None:
             continue
         v_left = out[ci][1]
@@ -727,20 +673,19 @@ def _batch_greedy_extensions(cands, k, greedy_ctx, belowscore=None,
             right_tasks.append((ci, right_slicer(useq, vseq, db + k,
                                                  urb, qs + k),
                                 max(urb - db - k,
-                                    len(vseq) - qs - k),
-                                right_offsets(ga, gb, db + k, urb,
-                                              qs + k, len(vseq))))
-    for ci, (row, vext, dist, mmv) in run_side(right_tasks,
-                                               False).items():
+                                    len(vseq) - qs - k)))
+    for ci, (row, vext, dist, mmv) in run_side(right_tasks).items():
         out[ci][3], out[ci][4], out[ci][5], out[ci][7] = \
             row, vext, dist, mmv
     return [tuple(o) if o is not None else None for o in out]
 
 
 def _device_extend_enabled() -> bool:
-    """Device-batched extension is the default on accelerator backends;
-    on the CPU backend the host C++ batch engine is faster than XLA-CPU
-    emulating the TPU kernel, so it stays the default there.
+    """Whether the wave provider extends seeds in batches (wave-batched
+    calls beat per-seed dispatch).  It does on an accelerator backend,
+    and on the CPU backend when the C++ batch engine is built.  The
+    batch engine is the C++ one unless GT_TPU_DEVICE_EXTEND=1 asks for
+    the device batches (XLA greedy chunk recurrence).
     GT_TPU_DEVICE_EXTEND=1 forces on, GT_TPU_NO_DEVICE_EXTEND=1 off."""
     if os.environ.get("GT_TPU_NO_DEVICE_EXTEND"):
         return False
@@ -750,7 +695,6 @@ def _device_extend_enabled() -> bool:
     try:
         if jax.default_backend() not in ("cpu",):
             return True
-        # CPU backend: wave-batched C++ calls beat per-seed dispatch
         from ..core.native import get_lib
         return get_lib() is not None
     except Exception:
@@ -758,10 +702,9 @@ def _device_extend_enabled() -> bool:
 
 
 def _wave_size() -> int:
-    """Tasks per extension wave: big on accelerators (each wave is a
-    full host->device->host round trip — on a remote TPU link the
-    per-call latency, not compute, is the cost), small on CPU where
-    skip-prediction accuracy saves real work. GT_TPU_WAVE overrides."""
+    """Tasks per extension wave: each wave is one batched extension
+    call, and a larger wave extends more seeds that the sequential
+    accept then skips.  GT_TPU_WAVE overrides."""
     env = os.environ.get("GT_TPU_WAVE")
     if env:
         return max(1, int(env))
@@ -783,7 +726,7 @@ class _WaveProvider:
     result stream is byte-identical to sequential extension."""
 
     def __init__(self, segments, order, states, k, greedy_ctx, use_apos,
-                 belowscore=None, pool=None, pool_bases=None):
+                 belowscore=None):
         self.WAVE = _wave_size()
         self.segments = segments
         self.order = order
@@ -792,8 +735,6 @@ class _WaveProvider:
         self.ctx = greedy_ctx
         self.use_apos = use_apos
         self.belowscore = belowscore
-        self.pool = pool
-        self.pool_bases = pool_bases
         self.cache: dict = {}
         self.pos_of = {key: idx for idx, key in enumerate(order)}
         self.cursor = 0     # furthest scanned order position (requests
@@ -838,16 +779,11 @@ class _WaveProvider:
                     continue                  # rectangles only grow
             first = False
             wave_keys.append(key)
-            if self.pool_bases is not None:
-                ga, gb = self.pool_bases[si]
-            else:
-                ga = gb = 0
-            cands.append((useq, vseq, same_seq, db, qs, ga, gb))
+            cands.append((useq, vseq, same_seq, db, qs))
         self.cursor = max(self.cursor, idx)
         if cands:
             exts = _batch_greedy_extensions(cands, k, self.ctx,
-                                            self.belowscore,
-                                            pool=self.pool)
+                                            self.belowscore)
             for key, ext in zip(wave_keys, exts):
                 self.cache[key] = ext
 
@@ -959,7 +895,6 @@ def _process_seed_pairs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,
         greedy_ctx_global = (pol, pmh, mad, params.history)
     # ---- pass 1: diagband coverage filter, per segment ---------------
     segments = []
-    seg_bases = []          # (a global start, b global start) per seg
     seq_cache: dict = {}
     for s0, s1 in zip(seg_starts, seg_ends):
         aseq, bseq = int(pa_seq[s0]), int(pb_seq[s0])
@@ -1003,8 +938,6 @@ def _process_seed_pairs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,
             seq_cache[vkey] = _seq_codes(benc, bseq, direction == "P")
         segments.append((aseq, bseq, seq_cache[ukey], seq_cache[vkey],
                          selfcomp and aseq == bseq, apos, bpos, sel))
-        seg_bases.append((int(aenc.seq_startpos(aseq)),
-                          int(benc.seq_startpos(bseq))))
 
     # ---- pass 2: device wave provider (greedy extensions) ------------
     # The reference extends seeds strictly sequentially because the
@@ -1021,22 +954,9 @@ def _process_seed_pairs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,
     states = {si: [False, -1, []] for si in range(len(segments))}
     provider = None
     if len(order) >= 8 and _device_extend_enabled():
-        # strand pool for device-resident descriptors: the a-side codes
-        # plus the b-side plane (revcomp for P); flank windows become
-        # (offset, len, rev) rows against this one upload
-        if direction == "P" or benc is not aenc:
-            bflat = _revcomp_codes(benc) if direction == "P" \
-                else benc.codes
-            pool = np.concatenate([aenc.codes, bflat])
-            b_off = aenc.codes.size
-        else:
-            pool = aenc.codes
-            b_off = 0
-        pool_bases = [(ga, b_off + gb) for ga, gb in seg_bases]
         if greedy_ctx_global is not None and 30 <= params.history <= 64:
             provider = _WaveProvider(segments, order, states, k,
-                                     greedy_ctx_global, params.use_apos,
-                                     pool=pool, pool_bases=pool_bases)
+                                     greedy_ctx_global, params.use_apos)
         elif params.extension == "xdrop" and \
                 params.scores == XdropScores():
             # xdrop with unit scores: device batch via the same wave
@@ -1044,8 +964,7 @@ def _process_seed_pairs(aenc, benc, direction, pa_seq, pb_seq, pb_pos,
             # inside ops.xdrop_batch.xdrop_extend_batch_exact)
             provider = _WaveProvider(segments, order, states, k,
                                      None, params.use_apos,
-                                     belowscore=belowscore,
-                                     pool=pool, pool_bases=pool_bases)
+                                     belowscore=belowscore)
 
     # ---- pass 3: sequential skip/accept (reference order) ------------
     for si, (aseq, bseq, useq, vseq, same_seq, apos, bpos, sel) \

@@ -9,7 +9,7 @@ lists mers in lexicographic order, the same result is a *vectorized
 segmentation*: a rank r contributes a k-mer iff its suffix has >= k
 regular characters; ranks with lcp >= k continue the previous mer's run;
 run boundaries (lcp[r] < k) delimit distinct mers, and counts are run
-lengths. No traversal, no stack — two scans and a cumsum, TPU/numpy
+lengths. No traversal, no stack — two scans and a cumsum, device/numpy
 friendly.
 
 Index files follow the reference formats:

@@ -4,12 +4,13 @@ Capability equivalent of the reference GtKmercodeiterator /
 getencseqkmers_twobitencoding (ref: src/match/sfx-mappedstr.c:427-483),
 redesigned as a vectorized window scan: instead of a sliding-window
 iterator with incremental code updates, every window code is computed
-data-parallel with k shifted gathers (VPU-friendly, no sequential
+data-parallel with k shifted gathers (elementwise, no sequential
 dependency). Windows containing special characters are masked invalid.
 
 Codes wider than 30 bits are returned as multiple int32 words
 (most-significant word first) so downstream sorts use multi-key
-`lax.sort` — TPU has no fast int64.
+`lax.sort` and jax_enable_x64 can stay off (a design chosen for the
+machine the package first ran on; not yet measured on a GPU).
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ Exactness bar: extension coordinates match the reference bit for bit
 
 Two implementations:
   * `xdrop_extend` below — the host engine / correctness oracle.
-  * batched device versions in ops/xdrop_batch.py and ops/xdrop_pallas.py
+  * a batched device version in ops/xdrop_batch.py
     (fixed-shape lanes over many seeds).
 
 Score model (ref: seed-extend.c:73-76 defaults): mat=2 mis=-1 ins=-2

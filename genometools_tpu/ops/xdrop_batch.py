@@ -82,9 +82,8 @@ def xdrop_extend_batch_impl(U, V, ulen, vlen, belowscore, W: int, D: int):
     w_iota = jnp.arange(W, dtype=jnp.int32)[None, None, :]
 
     def lcp_at(row_i):
-        """R[n, k, i] via one-hot multiply-reduce — per-lane gathers are
-        slow on TPU; an elementwise select + reduction over W rides the
-        VPU instead."""
+        """R[n, k, i] via a one-hot select + reduction over W (an
+        elementwise form of the per-lane gather)."""
         onehot = (row_i[:, :, None] == w_iota)
         vals = jnp.sum(jnp.where(onehot, R, 0), axis=2)
         return jnp.where((row_i >= 0) & (row_i < W), vals, 0)
@@ -257,115 +256,20 @@ def _run_device(us, vs, belowscore: int, W: int, D: int):
     return np.asarray(i), np.asarray(j), np.asarray(s), unsafe
 
 
-def _use_pallas_xdrop():
-    """Pallas is the bulk engine on TPU; "interpret" forces the
-    interpret-mode kernel (tests); "0"/"off" disables."""
-    import os
-    env = os.environ.get("GT_TPU_PALLAS_XDROP")
-    if env is not None:
-        if env == "interpret":
-            return "interpret"
-        return env not in ("0", "off", "no")
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-def _host_exact(us, vs, belowscore):
-    """Exact host engine: C++ batch if built, else the scalar mirror."""
-    from ..core.native import xdrop_batch_native
-    res = xdrop_batch_native(us, vs, belowscore)
-    if res is not None:
-        return (res[:, 0].astype(np.int64), res[:, 1].astype(np.int64),
-                res[:, 2].astype(np.int64))
-    from .xdrop import xdrop_extend
-    iv = np.zeros(len(us), np.int64)
-    jv = np.zeros(len(us), np.int64)
-    sv = np.zeros(len(us), np.int64)
-    for t, (u, v) in enumerate(zip(us, vs)):
-        best = xdrop_extend(u, v, belowscore)
-        iv[t], jv[t], sv[t] = best.ivalue, best.jvalue, best.score
-    return iv, jv, sv
-
-
-def _pallas_tiered(us, vs, belowscore: int, interpret: bool):
-    """VMEM-resident Pallas bulk engine with exact-host cleanup.
-
-    Lanes are routed per tier window (256/512); lanes too long, with an
-    out-of-band end diagonal, or flagged unsafe by the kernel
-    (slot-edge contact / generation cap) re-run on the host engine, so
-    the merged result is bit-equal to the scalar mirror everywhere."""
-    from .xdrop_pallas import (_block_lanes, pack_xdrop_tasks,
-                               xdrop_full_pallas)
-    D = 32    # K=65: half the vector width of D=64; the rare lane
-    #           whose front leaves the band falls back exactly anyway
-    N = len(us)
-    iv = np.zeros(N, np.int64)
-    jv = np.zeros(N, np.int64)
-    sv = np.zeros(N, np.int64)
-    lens = np.array([max(len(u), len(v)) for u, v in zip(us, vs)])
-    dif = np.array([abs(len(u) - len(v)) for u, v in zip(us, vs)])
-    host_mask = (lens > 512) | (dif > D)
-    pending = []                # device waves in flight (async fetch)
-    for W in (256, 512):
-        tier = np.flatnonzero(~host_mask & (lens <= W))
-        host_mask[tier] = True  # claimed
-        if tier.size == 0:
-            continue
-        # length-sorted lanes keep each block's generation count
-        # homogeneous (blocks exit as soon as all their lanes die)
-        tier = tier[np.argsort(lens[tier], kind="stable")]
-        BLK = _block_lanes(2 * D + 1, int(tier.size))
-        npad = -(-tier.size // BLK) * BLK
-        tu = [us[t] for t in tier] + [np.zeros(0, np.uint8)] * \
-            (npad - tier.size)
-        tv = [vs[t] for t in tier] + [np.zeros(0, np.uint8)] * \
-            (npad - tier.size)
-        PK = pack_xdrop_tasks(tu, tv, W)
-        out = xdrop_full_pallas(PK, belowscore, W, D=D, GENS=512,
-                                interpret=interpret, sync=False)
-        pending.append((tier, out))
-    bad_idx = []
-    for tier, out in pending:
-        out = np.asarray(out)
-        n = tier.size
-        iv[tier] = out[0][:n]
-        jv[tier] = out[1][:n]
-        sv[tier] = out[2][:n]
-        bad_idx.append(tier[out[3][:n] != 0])
-    redo = np.concatenate(
-        [np.flatnonzero((lens > 512) | (dif > D))] + bad_idx) \
-        if bad_idx else np.flatnonzero((lens > 512) | (dif > D))
-    if redo.size:
-        hi, hj, hs = _host_exact([us[t] for t in redo],
-                                 [vs[t] for t in redo], belowscore)
-        iv[redo] = hi
-        jv[redo] = hj
-        sv[redo] = hs
-    return iv, jv, sv
-
-
 def xdrop_extend_batch_exact(us, vs, belowscore: int, max_w: int = 512,
                              D: int = 64):
-    """Product-path batch: Pallas VMEM kernel for the bulk on TPU, exact
-    host engine for lanes the device cannot verify (window clipped AND
-    a front cell reached the clip edge, or the front outlived the
-    generation cap). Output is bit-equal to running the scalar engine
-    (ref: src/match/xdrop.c:224) on every pair.
+    """Product-path batch, bit-equal to running the scalar engine
+    (ref: src/match/xdrop.c:224) on every pair: the C++ batch engine
+    when the native library is built, else the lax device batch with
+    the scalar mirror re-running every lane the device cannot verify
+    (window clipped AND a front cell reached the clip edge, or the
+    front outlived the generation cap).
 
     Returns (ivalue, jvalue, score) int arrays of length len(us)."""
     N = len(us)
     if N == 0:
         z = np.zeros(0, np.int64)
         return z, z, z
-    pall = _use_pallas_xdrop()
-    if pall:
-        return _pallas_tiered(us, vs, belowscore,
-                              interpret=(pall == "interpret"))
-    # the C++ batch is the fast exact host engine for this front shape
-    # (measured ~170k ext/s vs ~3k for the lax device batch, which is
-    # gather-bound); use the lax device kernel only when no native lib
     from ..core.native import xdrop_batch_native
     res = xdrop_batch_native(us, vs, belowscore)
     if res is not None:
@@ -379,116 +283,8 @@ def xdrop_extend_batch_exact(us, vs, belowscore: int, max_w: int = 512,
     iv = iv.astype(np.int64)
     jv = jv.astype(np.int64)
     sv = sv.astype(np.int64)
-    bad = np.flatnonzero(unsafe)
-    if bad.size:
-        from ..core.native import xdrop_batch_native
-        res = xdrop_batch_native([us[b] for b in bad],
-                                 [vs[b] for b in bad], belowscore)
-        if res is not None:
-            iv[bad] = res[:, 0]
-            jv[bad] = res[:, 1]
-            sv[bad] = res[:, 2]
-        else:
-            from .xdrop import xdrop_extend
-            for b in bad:
-                best = xdrop_extend(us[b], vs[b], belowscore)
-                iv[b], jv[b], sv[b] = best.ivalue, best.jvalue, best.score
-    return iv, jv, sv
-
-
-@partial(jax.jit, static_argnames=("W0",))
-def _xdrop_pk_from_pool(gp, desc, W0: int):
-    """Device window builder for the xdrop PK layout: the greedy pool
-    gather (ops.greedy_batch._pk_from_pool) minus its seedlen column —
-    per-lane upload is the 12-byte descriptor, windows never touch the
-    host."""
-    from .greedy_batch import _pk_from_pool
-    W32 = W0 // 32
-    pk = _pk_from_pool(gp, desc, W0)
-    return jnp.concatenate([pk[:, :6 * W32], pk[:, 6 * W32 + 1:]],
-                           axis=1)
-
-
-def xdrop_extend_batch_pool(pool, u_off, u_len, v_off, v_len, rev,
-                            belowscore: int):
-    """Pool-resident exact xdrop batch: the packed pool uploads once,
-    waves send int32 descriptors, Pallas tiers compute, and unverified
-    lanes re-run on the exact host engine — bit-equal to the scalar
-    engine everywhere (device-resident task descriptors; the transfer
-    cost drops from packed windows to 12 B/lane)."""
-    N = int(np.asarray(u_off).size)
-    if N == 0:
-        z = np.zeros(0, np.int64)
-        return z, z, z
-    u_off = np.asarray(u_off, np.int64)
-    u_len = np.asarray(u_len, np.int64)
-    v_off = np.asarray(v_off, np.int64)
-    v_len = np.asarray(v_len, np.int64)
-    rev = np.asarray(rev, bool)
-
-    def materialize(idx):
-        us, vs = [], []
-        for i in idx:
-            u = pool[u_off[i]:u_off[i] + u_len[i]]
-            v = pool[v_off[i]:v_off[i] + v_len[i]]
-            if rev[i]:
-                u, v = u[::-1], v[::-1]
-            us.append(u)
-            vs.append(v)
-        return us, vs
-
-    pall = _use_pallas_xdrop()
-    if not pall or pool.size >= 1 << 31:
-        us, vs = materialize(np.arange(N))
-        return xdrop_extend_batch_exact(us, vs, belowscore)
-
-    from .greedy_batch import _pack_desc, pack_pool
-    from .xdrop_pallas import _block_lanes, xdrop_full_pallas
-
-    D = 32
-    lens = np.maximum(u_len, v_len)
-    dif = np.abs(u_len - v_len)
-    host_mask = (lens > 512) | (dif > D)
-    iv = np.zeros(N, np.int64)
-    jv = np.zeros(N, np.int64)
-    sv = np.zeros(N, np.int64)
-    gp = jnp.asarray(pack_pool(pool))
-    T = pool.size
-    us_ = np.where(rev, T - u_off - u_len, u_off).astype(np.int32)
-    vs_ = np.where(rev, T - v_off - v_len, v_off).astype(np.int32)
-    desc_all = np.stack(
-        [us_, u_len.astype(np.int32), vs_, v_len.astype(np.int32),
-         rev.astype(np.int32), np.zeros(N, np.int32)], axis=1)
-    pending = []
-    for W in (256, 512):
-        tier = np.flatnonzero(~host_mask & (lens <= W))
-        host_mask[tier] = True
-        if tier.size == 0:
-            continue
-        tier = tier[np.argsort(lens[tier], kind="stable")]
-        BLK = _block_lanes(2 * D + 1, int(tier.size))
-        npad = -(-tier.size // BLK) * BLK
-        desc = np.zeros((npad, 3), np.int32)
-        desc[:tier.size] = _pack_desc(desc_all[tier])
-        pk = _xdrop_pk_from_pool(gp, jnp.asarray(desc), W)
-        out = xdrop_full_pallas(pk, belowscore, W, D=D, GENS=512,
-                                interpret=(pall == "interpret"),
-                                sync=False)
-        pending.append((tier, out))
-    bad_idx = []
-    for tier, out in pending:
-        out = np.asarray(out)
-        n = tier.size
-        iv[tier] = out[0][:n]
-        jv[tier] = out[1][:n]
-        sv[tier] = out[2][:n]
-        bad_idx.append(tier[out[3][:n] != 0])
-    redo = np.concatenate(
-        [np.flatnonzero((lens > 512) | (dif > D))] + bad_idx)
-    if redo.size:
-        us, vs = materialize(redo)
-        hi, hj, hs = _host_exact(us, vs, belowscore)
-        iv[redo] = hi
-        jv[redo] = hj
-        sv[redo] = hs
+    from .xdrop import xdrop_extend
+    for b in np.flatnonzero(unsafe):
+        best = xdrop_extend(us[b], vs[b], belowscore)
+        iv[b], jv[b], sv[b] = best.ivalue, best.jvalue, best.score
     return iv, jv, sv

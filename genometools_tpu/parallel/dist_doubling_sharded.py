@@ -3,7 +3,7 @@
 The genuinely scaling engine (successor of dist_doubling.py's
 replicated-rank design): every per-device array here is O(n/P) and every
 per-round exchange moves O(n/P) bytes per device, so both memory and
-traffic shrink with the mesh — the TPU-native answer to the reference's
+traffic shrink with the mesh — the mesh-native answer to the reference's
 `-parts`/`-memlimit` partitioner (ref: src/match/sfx-partssuf.c:172),
 which bounds memory by processing code ranges sequentially; here the
 "parts" run concurrently on the mesh instead.
@@ -13,7 +13,8 @@ Design:
   * the rank array lives position-sharded: device m owns ranks of
     positions [m*C, (m+1)*C), C = n/P;
   * `rank[i+h]` for a whole block is a *shifted block fetch* — two
-    static `ppermute`s (h is static per unrolled round), no all_to_all;
+    `ppermute`s to the neighbors h/C and h/C + 1 blocks away, no
+    all_to_all;
   * the per-round (rank, rank[i+h], pos) tuple sort is a **block-bitonic
     distributed sort**: each device keeps a sorted C-block and the
     bitonic network on P blocks runs merge-split compare-exchanges
@@ -26,8 +27,9 @@ Design:
   * the new ranks ride back to their position owners as a second
     block-bitonic sort keyed on position (positions are a permutation,
     so the sorted blocks ARE the owner blocks);
-  * rounds early-exit via lax.cond on the replicated distinct-count —
-    skipped rounds cost one ppermute'd scalar, not a sort.
+  * the rounds are one lax.while_loop (one compiled round body, h
+    carried as a traced (h // C, h % C) pair) that stops once the
+    replicated distinct-count says every rank is unique.
 
 Exactness: byte-identical suffix arrays vs the single-chip doubling
 engine (tests/test_parallel.py), which itself is golden-verified against
@@ -36,7 +38,6 @@ the reference `gt suffixerator` output.
 
 from __future__ import annotations
 
-import math
 from functools import partial
 
 import jax
@@ -77,29 +78,63 @@ def _block_bitonic_sort(arrs, num_keys: int, nP: int, axis: str, C: int):
     return arrs
 
 
-def _shifted_fetch(blk, h: int, nP: int, axis: str, C: int, fill):
-    """out[j] = global_array[m*C + j + h] (fill beyond the end).
+def _shifted_fetch(blk, q, r, nP: int, axis: str, C: int, fill):
+    """out[j] = global_array[m*C + j + h] for h = q*C + r, r in [0, C)
+    (fill beyond the end).
 
-    h static => the two source blocks are static neighbors m+q, m+q+1;
-    two ppermutes move exactly one block per device. Position guards
-    run in int64 when blk does (n1 can exceed 2^31)."""
-    q, rrem = divmod(h, C)
-    n1 = nP * C
-    pdt = np.int64 if blk.dtype == jnp.int64 else np.int32
-    if q < nP:
-        perm_a = [(i, i - q) for i in range(q, nP)]
-        a = jax.lax.ppermute(blk, axis, perm_a)
+    The two source blocks are the neighbors m+q, m+q+1: two ppermutes
+    move exactly one block per device.  q and r may be traced
+    (replicated) scalars, so one compiled round serves every shift: q
+    then picks one of nP static ppermute pairs through lax.switch."""
+    def fetch(qq: int):
+        def branch(x):
+            a = (jax.lax.ppermute(x, axis, [(i, i - qq)
+                                            for i in range(qq, nP)])
+                 if qq < nP else jnp.zeros_like(x))
+            b = (jax.lax.ppermute(x, axis, [(i, i - qq - 1)
+                                            for i in range(qq + 1, nP)])
+                 if qq + 1 < nP else jnp.zeros_like(x))
+            return jnp.concatenate([a, b])
+        return branch
+
+    if isinstance(q, int):
+        ab = fetch(q)(blk)
     else:
-        a = jnp.zeros_like(blk)
-    if rrem and q + 1 < nP:
-        perm_b = [(i, i - q - 1) for i in range(q + 1, nP)]
-        b = jax.lax.ppermute(blk, axis, perm_b)
-    else:
-        b = jnp.zeros_like(blk)
-    out = jnp.concatenate([a[rrem:], b[:rrem]]) if rrem else a
+        ab = jax.lax.switch(jnp.minimum(q, nP - 1),
+                            [fetch(qq) for qq in range(nP)], blk)
+    out = jax.lax.dynamic_slice(ab, (r,), (C,))
+    # source device of out[j]: m+q while j + r < C, else m+q+1
+    # (position arithmetic in block units, so no int overflow at n > 2^31)
     my = jax.lax.axis_index(axis)
-    pos = my.astype(pdt) * pdt(C) + jnp.arange(C, dtype=pdt)
-    return jnp.where(pos + pdt(h) < pdt(n1), out, fill)
+    src = my + q + (jnp.arange(C, dtype=jnp.int32) >= C - r)
+    return jnp.where(src < nP, out, fill)
+
+
+def _double_shift(q, r, C: int):
+    """(q, r) of h*2 given h = q*C + r, without forming h."""
+    carry = r >= C - r
+    return 2 * q + carry.astype(jnp.int32), jnp.where(carry, r - (C - r),
+                                                        r + r)
+
+
+def _doubling_rounds(round_body, carry, n1: int, nP: int, C: int):
+    """Run round_body(h_q, h_r, carry) -> (carry, done) for h = _BOOT,
+    2*_BOOT, ... while h < n1 and not done, as one lax.while_loop (one
+    compiled round, however many rounds the input needs)."""
+    q0, r0 = divmod(_BOOT, C)
+
+    def cond(state):
+        q, _, _, done = state
+        return jnp.logical_not(done) & (q < nP)
+
+    def body(state):
+        q, r, c, _ = state
+        c, done = round_body(q, r, c)
+        q2, r2 = _double_shift(q, r, C)
+        return q2, r2, c, done
+
+    init = (jnp.int32(q0), jnp.int32(r0), carry, jnp.zeros((), jnp.bool_))
+    return jax.lax.while_loop(cond, body, init)[2]
 
 
 def _dense_rank_stitched(sorted_keys, nP: int, axis: str, C: int):
@@ -134,7 +169,6 @@ def sharded_build_sa(keys: jnp.ndarray, n1: int, mesh: Mesh):
     nP = mesh.devices.size
     assert n1 % nP == 0 and nP & (nP - 1) == 0
     C = n1 // nP
-    levels = max(1, math.ceil(math.log2(max(n1 / _BOOT, 2))))
 
     def stage(keys_blk):
         keys_blk = keys_blk.reshape(C)
@@ -144,33 +178,24 @@ def sharded_build_sa(keys: jnp.ndarray, n1: int, mesh: Mesh):
         # bootstrap: rank by the first _BOOT symbol keys
         kcols = [keys_blk]
         for j in range(1, _BOOT):
-            kcols.append(_shifted_fetch(keys_blk, j, nP, "shard", C,
-                                        np.int32(-1)))
+            kcols.append(_shifted_fetch(keys_blk, *divmod(j, C), nP,
+                                        "shard", C, np.int32(-1)))
         srt = _block_bitonic_sort(kcols + [pos], _BOOT, nP, "shard", C)
         skeys, spos = srt[:_BOOT], srt[_BOOT]
         nr, _ = _dense_rank_stitched(skeys, nP, "shard", C)
         back = _block_bitonic_sort([spos, nr], 1, nP, "shard", C)
         rank_blk = back[1]
 
-        done = jnp.zeros((), jnp.bool_)
-
-        def round_body(rank_blk, h: int):
-            r2 = _shifted_fetch(rank_blk, h, nP, "shard", C, np.int32(-1))
+        def round_body(q, r, rank_blk):
+            r2 = _shifted_fetch(rank_blk, q, r, nP, "shard", C,
+                                np.int32(-1))
             s1, s2, sp = _block_bitonic_sort([rank_blk, r2, pos], 2, nP,
                                              "shard", C)
             nr, distinct = _dense_rank_stitched([s1, s2], nP, "shard", C)
             _, nrank = _block_bitonic_sort([sp, nr], 1, nP, "shard", C)
             return nrank, distinct == n1
 
-        for t in range(levels):
-            h = _BOOT << t
-            if h >= n1:
-                break
-            rank_blk, done = jax.lax.cond(
-                done,
-                lambda r: (r, np.bool_(True)),
-                lambda r: round_body(r, h),
-                rank_blk)
+        rank_blk = _doubling_rounds(round_body, rank_blk, n1, nP, C)
 
         # SA: sort (rank, pos) by rank; rank is a permutation when done
         _, sa_blk = _block_bitonic_sort([rank_blk, pos], 1, nP, "shard", C)
@@ -386,7 +411,6 @@ def sharded_build_sa_sample(keys: jnp.ndarray, n1: int, mesh: Mesh):
     nP = mesh.devices.size
     assert nP > 1 and n1 % nP == 0
     C = n1 // nP
-    levels = max(1, math.ceil(math.log2(max(n1 / _BOOT, 2))))
 
     def stage(keys_blk):
         keys_blk = keys_blk.reshape(C)
@@ -396,28 +420,21 @@ def sharded_build_sa_sample(keys: jnp.ndarray, n1: int, mesh: Mesh):
         # bootstrap: rank by the first _BOOT symbol keys
         kcols = [keys_blk]
         for j in range(1, _BOOT):
-            kcols.append(_shifted_fetch(keys_blk, j, nP, "shard", C,
-                                        np.int32(-1)))
+            kcols.append(_shifted_fetch(keys_blk, *divmod(j, C), nP,
+                                        "shard", C, np.int32(-1)))
         rank_blk, _, ovf = _exchange_rank_roundtrip(kcols, pos, nP,
                                                     "shard", C)
 
-        done = jnp.zeros((), jnp.bool_)
-
-        def round_body(rank_blk, ovf, h: int):
-            r2 = _shifted_fetch(rank_blk, h, nP, "shard", C, np.int32(-1))
+        def round_body(q, r, carry):
+            rank_blk, ovf = carry
+            r2 = _shifted_fetch(rank_blk, q, r, nP, "shard", C,
+                                np.int32(-1))
             nrank, distinct, o = _exchange_rank_roundtrip(
                 [rank_blk, r2], pos, nP, "shard", C)
-            return nrank, ovf | o, distinct == n1
+            return (nrank, ovf | o), distinct == n1
 
-        for t in range(levels):
-            h = _BOOT << t
-            if h >= n1:
-                break
-            rank_blk, ovf, done = jax.lax.cond(
-                done,
-                lambda r, o: (r, o, np.bool_(True)),
-                lambda r, o: round_body(r, o, h),
-                rank_blk, ovf)
+        rank_blk, ovf = _doubling_rounds(round_body, (rank_blk, ovf), n1,
+                                         nP, C)
 
         # SA: rank is a permutation; deliver pos to the rank's owner slot
         dest = jnp.minimum(rank_blk // C, nP - 1)
@@ -439,8 +456,9 @@ def sharded_build_sa_sample(keys: jnp.ndarray, n1: int, mesh: Mesh):
 # ---------------------------------------------------------------------------
 # int32-pair lanes for >2^31 positions / key values
 #
-# TPUs have no native int64 (XLA emulates it as int32 pairs), and
-# jax_enable_x64 is off in this deployment — so the 64-bit path carries
+# jax_enable_x64 is off in this package (int32 lanes were chosen for the
+# machine it first ran on, which had no native int64; not yet measured
+# against int64 lanes on a GPU) — so the 64-bit path carries
 # every wide value as TWO int32 planes (hi, lo) in base C (the block
 # size): value = hi*C + lo, lo in [0, C).  Base C makes the routing
 # arithmetic free: a rank's owner device IS its hi plane and its slot
@@ -448,7 +466,7 @@ def sharded_build_sa_sample(keys: jnp.ndarray, n1: int, mesh: Mesh):
 # Comparisons cost nothing extra either: the tuple-sort helpers already
 # take column lists, so a wide key is simply two adjacent sort columns.
 # Constraint: C < 2^29 per device (so carry sums stay inside int32) —
-# far above any real per-device HBM budget.
+# far above any real per-device memory budget.
 # (ref capability: the reference's GT_LONGLONG suftab mode,
 # src/match/sfx-suffixer.c + sfx-partssuf.c int64 part planning.)
 # ---------------------------------------------------------------------------
@@ -529,12 +547,12 @@ def _exchange_rank_roundtrip_pair(keycols, poscols, nP: int, axis: str,
     return rank_hi, rank_lo, all_distinct, ovf
 
 
-def _shifted_fetch_pair(hi, lo, h: int, nP: int, axis: str, C: int):
+def _shifted_fetch_pair(hi, lo, q, r, nP: int, axis: str, C: int):
     """Pair-plane shifted fetch with sentinel (-1, 0) beyond the end —
     hi=-1 sorts before every real rank, matching the int32 engine's
     np.int32(-1) fill."""
-    return (_shifted_fetch(hi, h, nP, axis, C, np.int32(-1)),
-            _shifted_fetch(lo, h, nP, axis, C, np.int32(0)))
+    return (_shifted_fetch(hi, q, r, nP, axis, C, np.int32(-1)),
+            _shifted_fetch(lo, q, r, nP, axis, C, np.int32(0)))
 
 
 @partial(jax.jit, static_argnames=("n1", "mesh"))
@@ -548,7 +566,6 @@ def sharded_build_sa_sample_pair(keys_hi: jnp.ndarray,
     assert nP > 1 and n1 % nP == 0
     C = n1 // nP
     assert C < 2 ** 29, "per-device block must stay below 2^29"
-    levels = max(1, math.ceil(math.log2(max(n1 / _BOOT, 2))))
 
     def stage(khi_blk, klo_blk):
         khi_blk = khi_blk.reshape(C)
@@ -560,30 +577,23 @@ def sharded_build_sa_sample_pair(keys_hi: jnp.ndarray,
 
         kcols = [khi_blk, klo_blk]
         for j in range(1, _BOOT):
-            kcols.extend(_shifted_fetch_pair(khi_blk, klo_blk, j, nP,
-                                             "shard", C))
+            kcols.extend(_shifted_fetch_pair(khi_blk, klo_blk,
+                                             *divmod(j, C), nP, "shard",
+                                             C))
         rank_hi, rank_lo, _, ovf = _exchange_rank_roundtrip_pair(
             kcols, [pos_hi, pos_lo], nP, "shard", C)
 
-        done = jnp.zeros((), jnp.bool_)
-
-        def round_body(rank_hi, rank_lo, ovf, h: int):
-            r2_hi, r2_lo = _shifted_fetch_pair(rank_hi, rank_lo, h, nP,
+        def round_body(q, r, carry):
+            rank_hi, rank_lo, ovf = carry
+            r2_hi, r2_lo = _shifted_fetch_pair(rank_hi, rank_lo, q, r, nP,
                                                "shard", C)
             nhi, nlo, all_distinct, o = _exchange_rank_roundtrip_pair(
                 [rank_hi, rank_lo, r2_hi, r2_lo],
                 [pos_hi, pos_lo], nP, "shard", C)
-            return nhi, nlo, ovf | o, all_distinct
+            return (nhi, nlo, ovf | o), all_distinct
 
-        for t in range(levels):
-            h = _BOOT << t
-            if h >= n1:
-                break
-            rank_hi, rank_lo, ovf, done = jax.lax.cond(
-                done,
-                lambda a, b, o: (a, b, o, np.bool_(True)),
-                lambda a, b, o: round_body(a, b, o, h),
-                rank_hi, rank_lo, ovf)
+        rank_hi, rank_lo, ovf = _doubling_rounds(
+            round_body, (rank_hi, rank_lo, ovf), n1, nP, C)
 
         # SA delivery: owner device IS rank_hi, slot IS rank_lo
         recv, rvalid, o3, _ = _route2(

@@ -6,7 +6,7 @@ logic + the rdj pipeline wiring): pass A counts suffix-window vs
 read-prefix code collisions per part to size buffers and balance the
 parts, pass B materializes the matches part by part.
 
-TPU-native shape of the same design: suffix-window positions are
+Mesh-native shape of the same design: suffix-window positions are
 sharded over the device mesh; every device holds the (replicated)
 sorted prefix-code list — the replicated-encseq model — and counts its
 windows' candidate matches with two device `searchsorted`s, reduced

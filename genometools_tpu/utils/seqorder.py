@@ -3,7 +3,7 @@
 Capability equivalent of the reference seqorder tool
 (ref: src/tools/gt_seqorder.c): output the sequences of an encseq in a
 chosen order — suffix order of the sequence-start suffixes (-sort /
--revsort, computed with the TPU suffix engine instead of the
+-revsort, computed with the device suffix engine instead of the
 reference's in-memory suffix sorter), header order (-sorthdr /
 -sorthdrnum), descending length (-sortlength), inverted (-invert) or
 shuffled (-shuffle).

@@ -10,7 +10,7 @@ Capability equivalent of the reference's memory bookkeeping trio:
   * gt_spacepeak_show_space_peak (ref: src/core/spacepeak.c) — the
     "# combined space peak in megabytes: %.2f" line.
 
-The TPU rebuild cannot hook the allocator the way a C library can, so
+The JAX rebuild cannot hook the allocator the way a C library can, so
 the ledger takes two feeds:
   * explicit add/free calls from the engines that manage large buffers
     (parts planner, index writers) — the spacepeak.c analog;

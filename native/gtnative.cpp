@@ -1,7 +1,7 @@
 // gtnative: host-side sequential kernels for genometools_tpu.
 //
-// The TPU device side is purely data-parallel (sort/scan/histogram/DP in
-// JAX/Pallas); the traversals that are sequential-by-nature — bottom-up
+// The device side is purely data-parallel (sort/scan/histogram/DP in
+// JAX); the traversals that are sequential-by-nature — bottom-up
 // lcp-interval stack walks (capability equivalent of the reference
 // esa-bottomup engine, ref: src/match/esa-bottomup.c:116) and Kasai's LCP
 // (ref: src/match/sfx-linlcp.c:31) — run here over device-produced arrays.
@@ -1162,7 +1162,7 @@ int64_t gt_seedext_greedy_run(
 //
 // Capability equivalent of the reference's alternative constructor
 // `gt dev sain` (ref: src/match/sfx-sain.c:1577 gt_sain_encseq_sortsuffixes)
-// as an independent second path to cross-check the TPU doubling engine at
+// as an independent second path to cross-check the device doubling engine at
 // scale. Textbook induced-sorting formulation (Nong/Zhang/Chan 2009),
 // written from the published algorithm — not a port of the reference code.
 // ---------------------------------------------------------------------------

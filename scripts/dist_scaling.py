@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Measure 1->8 virtual-device scaling of the position-sharded doubling
-engines (sample-sort exchange vs block-bitonic) and write docs/SCALING.md.
+engines (sample-sort exchange vs block-bitonic) on at1MB and print the
+tables as markdown.
 
 Run:  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       JAX_PLATFORMS=cpu python scripts/dist_scaling.py
@@ -8,8 +9,7 @@ Run:  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
 The wall-clock columns are measured on a virtual CPU mesh (all devices
 timeshare the same host cores), so wall time does NOT improve with P —
 the scaling claim is about per-device memory, sort size, and exchanged
-bytes, which the table derives from the engine's static shapes. On a
-real TPU slice those per-device quantities are what wall time follows.
+bytes, which the table derives from the engine's static shapes.
 """
 
 import math
@@ -26,8 +26,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir",
-                  str(Path(__file__).resolve().parent.parent / ".jax_cache"))
+
+from genometools_tpu.utils.compile_cache import enable_compile_cache  # noqa
+
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
@@ -64,13 +66,14 @@ def sample_round_bytes(n1: int, nP: int):
 
 
 def main():
-    from genometools_tpu.core.encseq import Encseq
     from genometools_tpu.parallel.dist_doubling_sharded import \
         sharded_suffix_array
     from genometools_tpu.index.suffix import build_suffix_array
 
-    at1mb = "/root/reference/testdata/at1MB"
-    keys = Encseq.from_files([at1mb]).suffix_keys()
+    from genometools_tpu.core.esq import read_esq
+    golden = Path(__file__).resolve().parent.parent / "tests" / \
+        "golden_esa" / "at1MB" / "idx"
+    keys = read_esq(str(golden))[0].suffix_keys()
     n1 = keys.size
     npad = 1 << (n1 - 1).bit_length()
     rounds = max(1, math.ceil(math.log2(npad / 4)))
@@ -97,68 +100,66 @@ def main():
             print(engine, rows[-1], flush=True)
         tables[engine] = rows
 
-    md = Path(__file__).resolve().parent.parent / "docs" / "SCALING.md"
-    with md.open("w") as f:
+    f = sys.stdout
+    f.write(
+        "# Position-sharded doubling: 1->8 device scaling (at1MB)\n\n"
+        f"Input: reference at1MB, n1={n1} suffixes (padded to "
+        f"{npad}), {rounds} doubling rounds max.  Engine: "
+        "`parallel/dist_doubling_sharded.py`; default exchange is "
+        "the **sample-sort** (PSRS splitter broadcast + two-hop "
+        "balanced all_to_all with an invertible return path, "
+        "worst-case-bounded bucket capacities); the block-bitonic "
+        "network is kept as the cross-check engine.\n\n"
+        "Measured on the virtual 8-device CPU mesh "
+        "(`xla_force_host_platform_device_count`): all devices "
+        "timeshare the same host cores, so wall time cannot drop "
+        "with P; the scaling evidence is the per-device columns, "
+        "which are exact static shapes of the compiled program "
+        "(what wall time follows on real devices).\n")
+    for engine in ("sample", "bitonic"):
+        f.write(f"\n## {engine} exchange\n\n")
         f.write(
-            "# Position-sharded doubling: 1->8 device scaling (at1MB)\n\n"
-            f"Input: reference at1MB, n1={n1} suffixes (padded to "
-            f"{npad}), {rounds} doubling rounds max.  Engine: "
-            "`parallel/dist_doubling_sharded.py`; default exchange is "
-            "the **sample-sort** (PSRS splitter broadcast + two-hop "
-            "balanced all_to_all with an invertible return path, "
-            "worst-case-bounded bucket capacities); the block-bitonic "
-            "network is kept as the cross-check engine.\n\n"
-            "Measured on the virtual 8-device CPU mesh "
-            "(`xla_force_host_platform_device_count`): all devices "
-            "timeshare the same host cores, so wall time cannot drop "
-            "with P; the scaling evidence is the per-device columns, "
-            "which are exact static shapes of the compiled program "
-            "(what wall time follows on a real multi-chip slice).\n")
-        for engine in ("sample", "bitonic"):
-            f.write(f"\n## {engine} exchange\n\n")
-            f.write(
-                "| P | per-device positions | per-device bytes "
-                "exchanged / round | per-device tuple-sort items / "
-                "round | wall s (virtual mesh) | compile s | exact vs "
-                "single-chip |\n|---|---|---|---|---|---|---|\n")
-            for nP, C, b, s, t, tc, ok in tables[engine]:
-                f.write(f"| {nP} | {C:,} | {b:,} | {s:,} | {t:.2f} | "
-                        f"{tc:.1f} | {'yes' if ok else 'NO'} |\n")
-        sam = {r[0]: r for r in tables["sample"]}
-        bit = {r[0]: r for r in tables["bitonic"]}
-        f.write(
-            "\n## Modeled communication scaling efficiency\n\n"
-            "Per-device traffic per round is the scaling-limiting "
-            "quantity on a real slice (compute is embarrassingly "
-            "position-parallel). Communication scaling efficiency at P "
-            "= total exchanged bytes at P=2 / total exchanged bytes at "
-            "P (P=1 exchanges nothing, so P=2 is the baseline); 1.00 "
-            "means per-device traffic falls exactly 1/P:\n\n"
-            "| P | sample bytes/round/device | eff (sample) | bitonic "
-            "bytes/round/device | eff (bitonic) |\n|---|---|---|---|---|\n")
-        for nP in (2, 4, 8):
-            es = (sam[2][2] * 2) / (nP * sam[nP][2])
-            eb = (bit[2][2] * 2) / (nP * bit[nP][2])
-            f.write(f"| {nP} | {sam[nP][2]:,} | {es:.2f} | "
-                    f"{bit[nP][2]:,} | {eb:.2f} |\n")
-        es8 = (sam[2][2] * 2) / (8 * sam[8][2])
-        eb8 = (bit[2][2] * 2) / (8 * bit[8][2])
-        f.write(
-            f"\nThe sample-sort exchange scales at {100 * es8:.0f}% "
-            "communication efficiency to P=8 (per-device bytes/round "
-            "halve with every mesh doubling; BASELINE.md's >=80% "
-            f"target), where the bitonic network reaches {100 * eb8:.0f}% "
-            f"(its log^2(P) factor GROWS per-device traffic: "
-            f"{bit[8][2]:,} B at P=8 vs {sam[8][2]:,} for sample — and "
-            f"P=8 sample traffic {sam[8][2]:,} is below even the P=1 "
-            f"row's {sam[1][2]:,}). The two-hop balanced routing bounds "
-            "every all_to_all bucket by construction (no overflow "
-            "path, no skew sensitivity), and the invertible return "
-            "path delivers new ranks back to stationary position "
-            "owners as a single int32 plane. Measured wall time on the "
-            f"virtual mesh agrees: {sam[8][4]:.1f}s (sample) vs "
-            f"{bit[8][4]:.1f}s (bitonic) at P=8.\n")
-    print(f"wrote {md}")
+            "| P | per-device positions | per-device bytes "
+            "exchanged / round | per-device tuple-sort items / "
+            "round | wall s (virtual mesh) | compile s | exact vs "
+            "single-chip |\n|---|---|---|---|---|---|---|\n")
+        for nP, C, b, s, t, tc, ok in tables[engine]:
+            f.write(f"| {nP} | {C:,} | {b:,} | {s:,} | {t:.2f} | "
+                    f"{tc:.1f} | {'yes' if ok else 'NO'} |\n")
+    sam = {r[0]: r for r in tables["sample"]}
+    bit = {r[0]: r for r in tables["bitonic"]}
+    f.write(
+        "\n## Modeled communication scaling efficiency\n\n"
+        "Per-device traffic per round is the scaling-limiting "
+        "quantity on real devices (compute is embarrassingly "
+        "position-parallel). Communication scaling efficiency at P "
+        "= total exchanged bytes at P=2 / total exchanged bytes at "
+        "P (P=1 exchanges nothing, so P=2 is the baseline); 1.00 "
+        "means per-device traffic falls exactly 1/P:\n\n"
+        "| P | sample bytes/round/device | eff (sample) | bitonic "
+        "bytes/round/device | eff (bitonic) |\n|---|---|---|---|---|\n")
+    for nP in (2, 4, 8):
+        es = (sam[2][2] * 2) / (nP * sam[nP][2])
+        eb = (bit[2][2] * 2) / (nP * bit[nP][2])
+        f.write(f"| {nP} | {sam[nP][2]:,} | {es:.2f} | "
+                f"{bit[nP][2]:,} | {eb:.2f} |\n")
+    es8 = (sam[2][2] * 2) / (8 * sam[8][2])
+    eb8 = (bit[2][2] * 2) / (8 * bit[8][2])
+    f.write(
+        f"\nThe sample-sort exchange scales at {100 * es8:.0f}% "
+        "communication efficiency to P=8 (per-device bytes/round "
+        "halve with every mesh doubling; BASELINE.md's >=80% "
+        f"target), where the bitonic network reaches {100 * eb8:.0f}% "
+        f"(its log^2(P) factor GROWS per-device traffic: "
+        f"{bit[8][2]:,} B at P=8 vs {sam[8][2]:,} for sample — and "
+        f"P=8 sample traffic {sam[8][2]:,} is below even the P=1 "
+        f"row's {sam[1][2]:,}). The two-hop balanced routing bounds "
+        "every all_to_all bucket by construction (no overflow "
+        "path, no skew sensitivity), and the invertible return "
+        "path delivers new ranks back to stationary position "
+        "owners as a single int32 plane. Measured wall time on the "
+        f"virtual mesh agrees: {sam[8][4]:.1f}s (sample) vs "
+        f"{bit[8][4]:.1f}s (bitonic) at P=8.\n")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,6 @@ golden-verified against the reference front-prune engine
 import numpy as np
 import pytest
 
-from genometools_tpu.ops import greedy_batch as gb
 from genometools_tpu.ops.greedy import PolishingInfo, greedy_extend
 from genometools_tpu.ops.greedy_batch import (_GreedyBatchConfig,
                                               _polish_walk,
@@ -128,42 +127,8 @@ class TestSeedExtendDevicePath:
 
 
 class TestPoolResidentPath:
-    """greedy_extend_batch_pool: windows built ON DEVICE from the
-    packed pool (upload = 24B descriptors/lane) must match the
-    array-path results lane for lane."""
-
-    def test_pool_matches_array_path(self, monkeypatch):
-        from genometools_tpu.ops.greedy_pallas import greedy_full_pallas
-
-        def full_shim(*a, **kw):
-            return greedy_full_pallas(*a, **kw, interpret=True)
-        monkeypatch.setattr(gb, "greedy_full_impl", full_shim)
-        rng = np.random.default_rng(23)
-        pool = rng.integers(0, 4, 4000).astype(np.uint8)
-        pool[rng.integers(0, 4000, 40)] = 254     # wildcards in pool
-        N = 96
-        u_off = rng.integers(0, 3000, N)
-        u_len = rng.integers(1, 220, N)
-        v_off = rng.integers(0, 3000, N)
-        v_len = rng.integers(1, 220, N)
-        rev = rng.random(N) < 0.5
-        pol = PolishingInfo.new(20.0, 60)
-        kw = dict(seedlengths=14, perc_mat_history=55,
-                  maxalignedlendifference=30, pol_info=pol, history=60)
-        got = gb.greedy_extend_batch_pool(
-            pool, u_off, u_len, v_off, v_len, rev, **kw)
-        us, vs = [], []
-        for i in range(N):
-            u = pool[u_off[i]:u_off[i] + u_len[i]]
-            v = pool[v_off[i]:v_off[i] + v_len[i]]
-            if rev[i]:
-                u, v = u[::-1], v[::-1]
-            us.append(u)
-            vs.append(v)
-        want = gb.greedy_extend_batch(us, vs, **kw)
-        for key in ("alignedlen", "row", "distance", "mismatches",
-                    "died", "fallback"):
-            assert np.array_equal(got[key], want[key]), key
+    """The workload's pool form (one sequence pool plus per-task
+    offsets) describes the same flank tasks as its array form."""
 
     def test_workload_pool_equals_tasks(self, tmp_path):
         from genometools_tpu.core.encseq import Encseq

@@ -11,18 +11,16 @@ import pytest
 
 GOLD = pathlib.Path(__file__).parent / "golden_lcpitv"
 REPO = pathlib.Path(__file__).resolve().parent.parent
-TESTDATA = pathlib.Path("/root/reference/testdata")
+ENV = {"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin"}
 
 
 @pytest.fixture(scope="module")
-def dup_index(tmp_path_factory):
+def dup_index(tmp_path_factory, golden_fasta):
     d = tmp_path_factory.mktemp("dup")
-    env = {"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
-           "HOME": "/root"}
     r = subprocess.run(
         [sys.executable, "-m", "genometools_tpu", "suffixerator", "-db",
-         str(TESTDATA / "Duplicate.fna"), "-indexname", "dup", "-suf",
-         "-lcp", "-tis", "--cpu"], cwd=d, env=env, capture_output=True)
+         str(golden_fasta("Duplicate.fna")), "-indexname", "dup", "-suf",
+         "-lcp", "-tis", "--cpu"], cwd=d, env=ENV, capture_output=True)
     assert r.returncode == 0, r.stderr[-800:]
     return d / "dup"
 
@@ -30,12 +28,10 @@ def dup_index(tmp_path_factory):
 @pytest.mark.parametrize("mode", ["enumlcpitvs", "enumlcpitvtree",
                                   "spmitv"])
 def test_matches_gt_golden(dup_index, mode):
-    env = {"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
-           "HOME": "/root"}
     r = subprocess.run(
         [sys.executable, "-m", "genometools_tpu", "dev", "sfxmap",
          "-esa", str(dup_index), f"-{mode}", "--cpu"],
-        capture_output=True, text=True, env=env)
+        capture_output=True, text=True, env=ENV)
     assert r.returncode == 0, r.stderr[-800:]
     want = (GOLD / f"Duplicate.{mode}").read_text()
     assert r.stdout == want

@@ -692,3 +692,47 @@ class TestFusedEngineEquivalence:
         fused = self._lines(enc, "xdrop", monkeypatch, device=False)
         wave = self._lines(enc, "xdrop", monkeypatch, device=True)
         assert fused == wave and fused
+
+
+class TestWaveEngineChoice:
+    """The wave provider (-outfmt failed_seed, use_apos) extends greedy
+    flanks with the C++ batch; the XLA device batch runs only when
+    GT_TPU_DEVICE_EXTEND asks for it (or the native library is
+    missing), and both give the same matches."""
+
+    @staticmethod
+    def _lines(monkeypatch, device):
+        import numpy as np
+
+        import genometools_tpu.ops.greedy_batch as gb
+        from genometools_tpu.core.encseq import Encseq
+        from genometools_tpu.match.seed_extend import (SeedExtendParams,
+                                                       seed_extend)
+        calls = []
+        orig = gb.greedy_extend_batch
+
+        def spy(*a, **kw):
+            calls.append(len(a[0]))
+            return orig(*a, **kw)
+
+        monkeypatch.setattr(gb, "greedy_extend_batch", spy)
+        if device:
+            monkeypatch.setenv("GT_TPU_DEVICE_EXTEND", "1")
+        else:
+            monkeypatch.delenv("GT_TPU_DEVICE_EXTEND", raising=False)
+        rng = np.random.default_rng(31)
+        base = "".join(rng.choice(list("acgt"), 2400))
+        enc = Encseq.from_string(base + "|" + base[300:1500] + base[:600])
+        p = SeedExtendParams(seedlength=12, minidentity=85,
+                             extension="greedy", use_apos=1,
+                             userdefinedleastlength=20)
+        return [m.line() for m in seed_extend(enc, None, p)], calls
+
+    @pytest.mark.parametrize("device", [False, True])
+    def test_engine_follows_device_option(self, monkeypatch, device):
+        from genometools_tpu.core.native import get_lib
+        lines, calls = self._lines(monkeypatch, device)
+        assert lines
+        assert bool(calls) == (device or get_lib() is None)
+        other, _ = self._lines(monkeypatch, not device)
+        assert lines == other

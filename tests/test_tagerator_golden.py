@@ -17,7 +17,6 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 GDIR = REPO / "tests" / "golden_tagerator"
 TAGS = GDIR / "tags.fna"
-ATINSERT = "/root/reference/testdata/Atinsert.fna"
 
 
 def _rows(text):
@@ -34,16 +33,21 @@ def _rows(text):
 def _run(args, cwd):
     r = subprocess.run([sys.executable, "-m", "genometools_tpu"] + args,
                        cwd=cwd, capture_output=True, text=True,
-                       env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
-                            "HOME": "/root"})
+                       env={"PYTHONPATH": str(REPO),
+                            "PATH": "/usr/bin:/bin"})
     assert r.returncode == 0, r.stderr[-1500:]
     return r.stdout
 
 
 @pytest.fixture(scope="module")
-def sfx(tmp_path_factory):
+def atinsert(golden_fasta):
+    return str(golden_fasta("Atinsert.fna"))
+
+
+@pytest.fixture(scope="module")
+def sfx(tmp_path_factory, atinsert):
     w = tmp_path_factory.mktemp("tag")
-    _run(["suffixerator", "-db", ATINSERT, "-indexname", "sfx", "-dna",
+    _run(["suffixerator", "-db", atinsert, "-indexname", "sfx", "-dna",
           "-suf", "-tis", "-lcp", "-ssp", "--cpu"], w)
     return w
 
@@ -71,8 +75,8 @@ class TestTageratorGolden:
                        ["-q", str(TAGS), "-esa", "sfx", "--cpu"], sfx)
             assert _rows(out) == _rows((GDIR / golden).read_text()), golden
 
-    def test_pck_path_matches_esa_golden(self, sfx):
-        _run(["packedindex", "mkindex", "-db", ATINSERT,
+    def test_pck_path_matches_esa_golden(self, sfx, atinsert):
+        _run(["packedindex", "mkindex", "-db", atinsert,
               "-indexname", "pck", "--cpu"], sfx)
         out = _run(["tagerator", "-e", "1", "-q", str(TAGS),
                     "-pck", "pck", "--cpu"], sfx)
